@@ -8,7 +8,7 @@
  * regions inside each rank behave exactly as under mpiexec.
  *
  * This is benchmark-harness code for measuring the reference, not part of
- * the TPU framework's runtime.
+ * the framework's runtime.
  */
 #ifndef PHYNGSC_MPI_SHIM_H
 #define PHYNGSC_MPI_SHIM_H

@@ -1,7 +1,7 @@
-"""phyngsc_tpu — TPU-native FASTQ compression framework.
+"""phyngsc_tpu — GPU-accelerated FASTQ compression framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of pcdslab/PHYNGSC
-(hybrid MPI+OpenMP DSRC-v1-style FASTQ compressor; /root/reference). See
+(hybrid MPI+OpenMP DSRC-v1-style FASTQ compressor). See
 DESIGN.md for the architecture and SURVEY.md for the reference component map.
 """
 

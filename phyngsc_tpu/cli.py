@@ -43,7 +43,7 @@ def _cfg_from(args) -> CodecConfig:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="phyngsc_tpu",
-                                 description="TPU-native FASTQ compressor")
+                                 description="GPU-accelerated FASTQ compressor")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     c = sub.add_parser("compress", help="FASTQ → .ngsct")
@@ -61,8 +61,8 @@ def main(argv=None) -> int:
     d.add_argument("input")
     d.add_argument("output")
     d.add_argument("--data-shards", type=int, default=1,
-                   help="shard the fused walk decode over N mesh devices "
-                        "(substream groups are shard-independent)")
+                   help="shard the walk decode over N mesh devices "
+                        "(substreams are shard-independent)")
 
     imp = sub.add_parser(
         "import-ngsc",
@@ -86,6 +86,14 @@ def main(argv=None) -> int:
     _add_codec_flags(v)
 
     args = ap.parse_args(argv)
+    if args.cmd in ("compress", "decompress", "verify"):
+        from phyngsc_tpu import backend
+        from phyngsc_tpu.utils import native
+
+        backend.enable_compile_cache()
+        print(f"[I] device {backend.device_summary()}  "
+              f"decode walk {backend.walk_impl()}  "
+              f"host loops {native.summary()}")
 
     if args.cmd == "compress":
         from phyngsc_tpu.pipeline.compress import compress_file

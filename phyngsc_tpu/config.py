@@ -3,7 +3,7 @@
 The reference hard-codes its geometry as compile-time constants (defs.h:20-21
 8 MiB buffers, phyNGSC.cpp:48 overlap=500, :51 records_per_th=100000,
 structures.h:25-26 Huffman caps 512/256, tasks.cpp:25-26 stat caps). Here they
-are a dataclass because block/batch geometry is the main TPU tuning knob
+are a dataclass because block/batch geometry is the main device tuning knob
 (SURVEY §5 config note).
 """
 
@@ -37,17 +37,16 @@ class CodecConfig:
     #: Maximum Huffman code length. Length-limited codes make device encode a
     #: pure table lookup and decode a single 2^max_code_len LUT (the
     #: reference's unbounded-depth trees + bit-walk, huffman.cpp:18-85, do
-    #: not map to TPU). Codes group k = 32 // max_code_len per scatter
-    #: element (ops/lookup.group_codes); 12 bits measured the same device
-    #: throughput as 10 with ~1.6% better ratio on ERR-style data.
+    #: not vectorize). Codes group k = 32 // max_code_len per scatter
+    #: element (ops/lookup.group_codes).
     max_code_len: int = 12
     #: Records per decode substream. Each substream decodes independently
-    #: (vectorized across VPU lanes); its packed words start word-aligned and
+    #: (one lane of the decode walk); its packed words start word-aligned and
     #: its word offset is stored in the stream header.
     records_per_substream: int = 64
     #: Long-read substream policy: the decode walk runs G*L sequential steps
     #: over S = R/G parallel lanes, so at 1000 bp the 36 bp-tuned G=64 means
-    #: 64000 steps over few lanes (measured 55 MB/s device decode). When the
+    #: 64000 dependent steps over few lanes. When the
     #: first record's read length exceeds 256, the compress drivers shrink G
     #: toward ~8192 total steps (power of two, >= 8, never above the
     #: configured records_per_substream); the footer records the resolved
@@ -90,9 +89,8 @@ class CodecConfig:
     def __post_init__(self) -> None:
         if self.max_code_len > 12:
             raise ValueError(
-                "max_code_len > 12 breaks the fused MXU lookup (ops/lookup.py "
-                "CODE_BITS) — alphabets here are <= 256 so 12 bits lose "
-                "nothing measurable"
+                "max_code_len > 12 does not fit the fused (len << 12) | code "
+                "table entries (ops/lookup.py CODE_BITS)"
             )
         if self.block_size < (1 << 16):
             raise ValueError("block_size too small for header framing")

@@ -13,7 +13,7 @@ routine of the reference, cited inline:
     subblk  := info | StoreTitle | StoreQuality | StoreDNA
                (copy order phyNGSC.cpp:804-840; info :719-742)
 
-This is a host-side compatibility writer (pure numpy/bit I/O): the TPU
+This is a host-side compatibility writer (pure numpy/bit I/O): the device
 pipeline's native container is `.ngsct`; exporting exists to prove the
 store-side semantics (C4-C12) are fully understood, not to be fast.
 

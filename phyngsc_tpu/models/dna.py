@@ -38,8 +38,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from phyngsc_tpu import backend
 from phyngsc_tpu.config import CodecConfig
-from phyngsc_tpu.ops import bitpack, histogram, huffman, lookup
+from phyngsc_tpu.ops import bitpack, histogram, huffman, lookup, walk
 from phyngsc_tpu.utils.bitio import (BitReader, BitWriter, bit_length,
                                      get_uint_array, put_uint_array)
 
@@ -90,9 +91,8 @@ def valid_mask(lens: jnp.ndarray, L: int) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 
 #: the (char, code) pairs of trans_amb_codes — 19 nonzero entries of a
-#: 256-slot table, so the per-base code is 19 VPU compares instead of a
-#: table machinery pass (the one-hot lookup here measured as the encode
-#: analyze graph's dominant cost once everything else was compare-based)
+#: 256-slot table, so the per-base code is 19 fused elementwise compares
+#: instead of a table lookup pass
 _AMB_PAIRS = tuple((int(c), int(AMB_CODE[c]))
                    for c in np.flatnonzero(AMB_CODE))
 
@@ -264,12 +264,12 @@ def encode_device(seq: jnp.ndarray, keep: jnp.ndarray,
     """Pack kept DNA symbols. Returns (words, sub_n_words, total_words).
 
     Plain mode packs 16 bases per element (group_fixed2); Huffman mode uses
-    the fused MXU lookup + symbol grouping. pack selects the bitpack kernel
+    the fused table lookup + symbol grouping. pack selects the bitpack kernel
     ("scatter" | "rows" | "rows_compact", see quality.encode_device); bit
     layouts are unchanged vs symbol-at-a-time packing in every mode."""
     s32 = seq.astype(jnp.int32)
     if mode == MODE_PLAIN:
-        # A=0 C=1 G=2 T=3 via compares (a 256-table gather is ~50 ms on TPU)
+        # A=0 C=1 G=2 T=3 via compares
         vals = ((s32 == ord("C")) * 1 + (s32 == ord("G")) * 2
                 + (s32 == ord("T")) * 3).astype(jnp.uint32)
         pc, pl = lookup.group_fixed2(vals, keep, 16)
@@ -295,9 +295,11 @@ def encode_device(seq: jnp.ndarray, keep: jnp.ndarray,
 
 @functools.partial(jax.jit, static_argnames=("L", "records_per_substream"))
 def decode_plain(words: jnp.ndarray, sub_n_words: jnp.ndarray,
-                 keep: jnp.ndarray, L: int, records_per_substream: int):
+                 keep: jnp.ndarray, L: int, records_per_substream: int,
+                 base=None):
     """Fully parallel 2-bit decode: offsets are a prefix sum over the keep
-    mask — no sequential walk (SURVEY §7 step 3b realized)."""
+    mask — no sequential walk (SURVEY §7 step 3b realized). base: optional
+    (traced) word offset of the first substream in `words`."""
     G = records_per_substream
     R = keep.shape[0]
     S = R // G
@@ -305,9 +307,7 @@ def decode_plain(words: jnp.ndarray, sub_n_words: jnp.ndarray,
     lay = bitpack.substream_layout(widths, G)
     # layout must match encode: same widths → same offsets, but word starts
     # come from the *stored* sub_n_words (identical by construction)
-    sub_word_start = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(sub_n_words)[:-1].astype(jnp.int32)]
-    )
+    sub_word_start = bitpack.word_starts(sub_n_words, base)
     within = lay["bit_offsets"] - (lay["sub_word_start"] * 32).repeat(G, axis=0).reshape(R, 1)
     offsets = within + (sub_word_start * 32).repeat(G, axis=0).reshape(R, 1)
     vals = bitpack.extract_fixed_width(words, offsets, widths, R * L).reshape(R, L)
@@ -315,92 +315,24 @@ def decode_plain(words: jnp.ndarray, sub_n_words: jnp.ndarray,
     return jnp.where(keep, nucs, 0).astype(jnp.uint8)
 
 
-@functools.partial(jax.jit, static_argnames=("L", "records_per_substream", "lut_bits"))
+@functools.partial(jax.jit, static_argnames=("L", "records_per_substream",
+                                             "lut_bits", "impl"))
 def decode_huffman(words: jnp.ndarray, sub_n_words: jnp.ndarray,
-                   keep: jnp.ndarray, luts: jnp.ndarray,
-                   L: int, records_per_substream: int, lut_bits: int):
-    """Substream LUT walk over kept symbols, then scatter back to (R, L)."""
+                   keep: jnp.ndarray, luts: jnp.ndarray, L: int,
+                   records_per_substream: int, lut_bits: int,
+                   impl: str = backend.XLA, base=None):
+    """Huffman DNA decode via the slot walk (ops/walk.py, implementation
+    `impl`): slots are (record, position) pairs and kept slots consume the
+    lane's next code, so symbols land directly in (R, L) layout. The stream
+    starts at word `base` (traced, default 0) of `words`."""
     G = records_per_substream
     R = keep.shape[0]
     S = R // G
     T = G * L
-    k32 = keep.astype(jnp.int32)
-    kept_per_rec = jnp.sum(k32, axis=1)
-    sub_word_start = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(sub_n_words)[:-1].astype(jnp.int32)]
-    )
-    kept_sub = kept_per_rec.reshape(S, G)
-    cum = jnp.cumsum(kept_sub, axis=1)
-    step_valid = jnp.arange(T, dtype=jnp.int32)[None, :] < cum[:, -1:]
-    tree_ids = jnp.zeros((S, T), jnp.int32)
-    syms = bitpack.unpack_substreams(
-        words, sub_word_start, luts, tree_ids, step_valid, T, lut_bits
-    )
-    # step index of each kept (r, p): records-before + kept-before-within-record
-    before_rec = (cum - kept_sub).reshape(R)
-    within = jnp.cumsum(k32, axis=1) - k32
-    step_of = before_rec[:, None] + within
-    sub_of_r = jnp.arange(R, dtype=jnp.int32) // G
-    out = syms[sub_of_r[:, None], jnp.clip(step_of, 0, T - 1)]
-    return jnp.where(keep, out, 0).astype(jnp.uint8)
-
-
-def _keep_slot_mask(keep: jnp.ndarray, G: int, Sp: int) -> jnp.ndarray:
-    """(R, L) keep → (T, Sp) slot mask for the masked walk: slot t = g*L+p
-    of lane s consumes a symbol iff keep[s*G+g, p]."""
-    R, L = keep.shape
-    S = R // G
-    m = keep.reshape(S, G * L).T.astype(jnp.uint8)     # (T, S)
-    return jnp.pad(m, ((0, 0), (0, Sp - S)))
-
-
-@functools.partial(jax.jit, static_argnames=("L", "records_per_substream",
-                                             "lut_bits", "interpret"))
-def decode_huffman_walk(words_dense: jnp.ndarray, keep: jnp.ndarray,
-                        runs, L: int,
-                        records_per_substream: int, lut_bits: int,
-                        interpret: bool = False):
-    """decode_huffman via the masked pallas walk: slots are (record,
-    position) pairs, kept slots consume the lane's next symbol — decoded
-    symbols land directly in (R, L) layout, no step->(r,p) gather.
-    Bit-identical to decode_huffman."""
-    G = records_per_substream
-    R = keep.shape[0]
-    S = R // G
-    T = G * L
-    Sp = words_dense.shape[1]
-    starts, deltas = runs
-    sh_s = jnp.broadcast_to(starts[0], (bitpack._WALK_TC, starts.shape[1]))
-    sh_d = jnp.broadcast_to(deltas[0], (bitpack._WALK_TC, deltas.shape[1]))
-    syms = bitpack.unpack_substreams_masked_pallas(
-        words_dense, sh_s, sh_d, _keep_slot_mask(keep, G, Sp), n_steps=T,
-        shared_luts=True, lut_bits=lut_bits, interpret=interpret)[:S]
-    out = syms.reshape(R, L)
-    return jnp.where(keep, out, 0).astype(jnp.uint8)
-
-
-@functools.partial(jax.jit, static_argnames=("L", "records_per_substream",
-                                             "interpret"))
-def decode_plain_walk(words_dense: jnp.ndarray, keep: jnp.ndarray,
-                      L: int, records_per_substream: int,
-                      interpret: bool = False):
-    """decode_plain via the masked walk: the 2-bit plain code is a 4-leaf
-    'tree' (every entry len 2), so the same kernel replaces
-    extract_fixed_width's two general gathers (measured 37.9 ms for the
-    2.36M-element extraction at 65536x36 on v5e)."""
-    G = records_per_substream
-    R = keep.shape[0]
-    S = R // G
-    T = G * L
-    Sp = words_dense.shape[1]
-    # plain2: entries are computed arithmetically from the window's top two
-    # bits — the table inputs are placeholders (never read)
-    shared = jnp.zeros((bitpack._WALK_TC, 128), jnp.int32)
-    syms = bitpack.unpack_substreams_masked_pallas(
-        words_dense, shared, shared, _keep_slot_mask(keep, G, Sp), n_steps=T,
-        shared_luts=True, plain2=True, interpret=interpret)[:S]
-    nucs = _acgt_chars(syms.reshape(R, L))
-    return jnp.where(keep, nucs, 0).astype(jnp.uint8)
+    syms = walk.walk_slots(words, bitpack.word_starts(sub_n_words, base),
+                           luts, jnp.zeros((T,), jnp.int32),
+                           keep.reshape(S, T).T, lut_bits, impl)
+    return syms.T.reshape(R, L).astype(jnp.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ prints a warning and miscompresses (phyNGSC.cpp:417-421) — the model falls
 back to a single whole-title char field, which is the same machinery with
 F = 1 (strictly stronger than the reference).
 
-TPU split: tokenization/classification/reassembly are host numpy (irregular,
+Host/device split: tokenization/classification/reassembly are host numpy (irregular,
 string-heavy — SURVEY §7 step 3c); payload emission runs on device as two
 streams: a **fixed stream** (numeric chunks + variable field lengths; constant
 per-record stride → fully parallel extract on decode) and a **char stream**

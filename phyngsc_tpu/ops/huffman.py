@@ -1,7 +1,7 @@
 """Length-limited canonical Huffman coding.
 
 Capability equivalent of the reference HuffmanEncoder (huffman.cpp:18-222) with
-a TPU-first contract:
+a vectorized-device contract:
 
 - Codes are **length-limited** (<= CodecConfig.max_code_len, default 12) and
   **canonical**. The reference builds unbounded-depth trees and decodes by
@@ -161,39 +161,6 @@ def decode_lut(lens: np.ndarray, lut_bits: int, singleton: int = -1):
         sym[lo:hi] = s
         length[lo:hi] = l
     return sym, length
-
-
-def pair_decode_lut(lensA: np.ndarray, lensB: np.ndarray, lut_bits2: int,
-                    singA: int = -1, singB: int = -1) -> np.ndarray:
-    """Two-symbol decode LUT: a `lut_bits2`-bit window → packed
-    (total_len << 18) | (symB << 9) | symA, decoding one code from tree A
-    followed by one from tree B per table hit. Requires
-    max_len(A) + max_len(B) <= lut_bits2 so the second code is fully
-    determined by the window. Halves the decode walk's steps and gathers
-    (the TPU walk is gather-bound — G/lut_bits sweeps measured flat)."""
-    symA, lenA = decode_lut(lensA, lut_bits2, singA)
-    symB_tab, lenB_tab = decode_lut(lensB, lut_bits2, singB)
-    if lensA.size and lensB.size and \
-            int(np.asarray(lensA).max()) + int(np.asarray(lensB).max()) > lut_bits2:
-        raise ValueError("lut_bits2 smaller than combined max code length")
-    w = np.arange(1 << lut_bits2, dtype=np.int64)
-    rem = (w << lenA.astype(np.int64)) & ((1 << lut_bits2) - 1)
-    symB = symB_tab[rem]
-    lenB = lenB_tab[rem]
-    # windows whose first code is invalid (len 0 on a non-singleton tree)
-    # must not decode a second symbol either — corruption stays len-0
-    dead = (lenA == 0) & (symA == 0) if singA < 0 else np.zeros_like(lenA, bool)
-    total = np.where(dead, 0, lenA + lenB)
-    symB = np.where(dead, 0, symB)
-    return ((total << 18) | (symB << 9) | symA).astype(np.int32)
-
-
-def half_decode_lut(lens: np.ndarray, lut_bits2: int, sing: int = -1
-                    ) -> np.ndarray:
-    """Pair-format LUT decoding only ONE symbol (the boundary step when a
-    substream's symbol count is odd): symB slot is 0 and never observed."""
-    symA, lenA = decode_lut(lens, lut_bits2, sing)
-    return ((lenA << 18) | symA).astype(np.int32)
 
 
 def decode_lut_batch(lens: np.ndarray, lut_bits: int, singletons=None):

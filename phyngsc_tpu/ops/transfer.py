@@ -1,9 +1,7 @@
 """Host→device transfer packing for the (seq, qual) input planes.
 
 The pipeline's H2D traffic is 2 bytes per base (sequence byte + quality
-byte). On bandwidth-poor links (PCIe on production hosts, a loopback relay
-on this dev harness) that traffic bounds end-to-end throughput, so the host
-packs both planes before upload — DNA to 2 bits when the plane is pure
+byte), so the host packs both planes before upload — DNA to 2 bits when the plane is pure
 ACGT (the common case; the reference reaches the same 4-symbol insight in
 its plain coder, tasks.cpp:239-256) and quality to 6 bits when all symbols
 are in [33, 96] — a 4x/1.33x reduction, 2x combined. The device unpacks

@@ -12,7 +12,7 @@ ordering (C13/C14). Here each host (jax process) owns a working region
    pointer, no timestamps, no ordering pass),
 4. process 0 gathers block counts/last sizes and writes the footer.
 
-Run one process per host:
+Run one process per host (or one per GPU with --processes-per-host):
 
     python -m phyngsc_tpu.parallel.distributed \
         --coordinator HOST:1234 --num-processes N --process-id I \
@@ -194,6 +194,15 @@ def decompress_file_distributed(in_path: str, out_path: str,
          pid, n_proc, sorted(mine), dec_s)
 
 
+def local_device_ids(process_id: int, processes_per_host: int):
+    """The GPUs a process opens: its own one when several processes share a
+    host (a JAX process reserves most of every card it opens), else all
+    (None)."""
+    if processes_per_host <= 1:
+        return None
+    return [process_id % processes_per_host]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--coordinator", required=True)
@@ -201,16 +210,24 @@ def main(argv=None) -> int:
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--decompress", action="store_true",
                     help="decode input (.ngsct) to output (.fastq) instead")
+    ap.add_argument("--processes-per-host", type=int, default=1,
+                    help="processes started on each host; each then opens "
+                         "only its own GPU (process index mod this count)")
     ap.add_argument("input")
     ap.add_argument("output")
     args = ap.parse_args(argv)
 
     import jax
 
+    from phyngsc_tpu import backend
+
+    backend.enable_compile_cache()
     jax.distributed.initialize(
         coordinator_address=args.coordinator,
         num_processes=args.num_processes,
         process_id=args.process_id,
+        local_device_ids=local_device_ids(args.process_id,
+                                          args.processes_per_host),
     )
     if args.decompress:
         decompress_file_distributed(args.input, args.output)

@@ -4,7 +4,7 @@ Replaces the reference's non-deterministic shared-file-pointer writes +
 timestamp-ordering footer pass (C13/C14: MPI_File_write_shared
 phyNGSC.cpp:875, MPI_Wtime :877, gather/sort/verify :934-1033). The reference
 needed that protocol because ranks could not cheaply agree on block offsets
-up front; on a TPU pod the block *sizes* are tiny metadata that ride ICI/DCN
+up front; here the block *sizes* are tiny metadata that ride device
 collectives, so every writer computes its file offsets with an exclusive
 prefix sum and `pwrite`s at deterministic positions. Ordering becomes
 deterministic — strictly stronger than the reference's guarantee — while the
@@ -13,7 +13,7 @@ footer keeps the same block→writer metadata (CBO).
 Two implementations, same math:
 - `offsets_from_counts` — host-side (single process, W logical writers)
 - `exchange_offsets_sharded` — `shard_map` collective over a mesh axis
-  (all_gather over ICI), used by the multi-chip path and the dry-run.
+  (all_gather over the device interconnect), used by the multi-chip path and the dry-run.
 """
 
 from __future__ import annotations

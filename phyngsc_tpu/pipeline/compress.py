@@ -100,7 +100,7 @@ def encode_subblocks_pipelined(buf: np.ndarray, regions, cfg: CodecConfig,
     so index memory is O(window), not O(input). The three encode stages
     run software-pipelined across tasks: stage A of task i+2 and stage B
     of task i+1 overlap the async device work and device→host fetches of
-    task i (the TPU analogue of the reference's read/compress/write
+    task i (the device analogue of the reference's read/compress/write
     overlap across OpenMP regions, phyNGSC.cpp:690-727)."""
     tasks = iter_subblock_tasks(buf, regions, cfg)
     n_tasks = 0

@@ -181,6 +181,18 @@ def available() -> bool:
     return _load() is not None
 
 
+def summary() -> str:
+    """How the host loops run: the native library with its OpenMP thread
+    count, the native library built serial, or the numpy fallback."""
+    lib = _load()
+    if lib is None:
+        return "numpy (no native library)"
+    if not hasattr(lib, "phyngsc_openmp_threads"):
+        return "native (OpenMP unknown)"
+    n = int(lib.phyngsc_openmp_threads())
+    return f"native, OpenMP {n} threads" if n else "native, serial (no OpenMP)"
+
+
 def _i64p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 

@@ -9,9 +9,9 @@ from phyngsc_tpu.ops.bitpack import (
     pack_bits_scatter,
     pack_lut,
     substream_layout,
-    unpack_substreams,
     words_to_bytes,
 )
+from phyngsc_tpu.ops.walk import walk_slots_xla
 from phyngsc_tpu.utils.bitio import BitWriter
 
 
@@ -103,13 +103,13 @@ def test_huffman_roundtrip_fixed_length():
 
     S = R // G
     n_steps = G * L
-    tree_ids = np.tile(np.arange(L, dtype=np.int32), (S, G))
-    valid = np.ones((S, n_steps), dtype=bool)
-    out = unpack_substreams(
+    step_tree = np.tile(np.arange(L, dtype=np.int32), G)
+    mask = np.ones((n_steps, S), dtype=bool)
+    out = walk_slots_xla(
         words, lay["sub_word_start"], jnp.array(luts),
-        jnp.array(tree_ids), jnp.array(valid), n_steps, 12,
+        jnp.array(step_tree), jnp.array(mask), 12,
     )
-    got = np.asarray(out).reshape(S, G, L).reshape(R, L)
+    got = np.asarray(out).T.reshape(R, L)
     np.testing.assert_array_equal(got, data)
 
 
@@ -127,32 +127,19 @@ def test_huffman_roundtrip_variable_length():
     n_words = int(lay["total_words"])
     words = pack_bits_scatter(jnp.array(codes), jnp.array(lens), lay["bit_offsets"], n_words)
 
-    # decode step t of substream s belongs to record r, position p where
-    # r/p follow from the per-record lengths (record-major, gaps removed)
+    # slot t = g*L + p of substream s is record s*G+g at position p; it
+    # consumes a code iff p < that record's length
     S = R // G
     n_steps = G * L
-    tree_ids = np.zeros((S, n_steps), dtype=np.int32)
-    valid = np.zeros((S, n_steps), dtype=bool)
-    rec_of = np.zeros((S, n_steps), dtype=np.int64)
-    pos_of = np.zeros((S, n_steps), dtype=np.int64)
-    for s in range(S):
-        t = 0
-        for g in range(G):
-            r = s * G + g
-            for p in range(int(rec_len[r])):
-                tree_ids[s, t] = p
-                rec_of[s, t] = r
-                pos_of[s, t] = p
-                valid[s, t] = True
-                t += 1
+    step_tree = np.tile(np.arange(L, dtype=np.int32), G)
+    mask = pos_valid.reshape(S, n_steps).T
     out = np.asarray(
-        unpack_substreams(
+        walk_slots_xla(
             words, lay["sub_word_start"], jnp.array(luts),
-            jnp.array(tree_ids), jnp.array(valid), n_steps, 12,
+            jnp.array(step_tree), jnp.array(mask), 12,
         )
     )
-    got = np.zeros_like(data)
-    got[rec_of[valid], pos_of[valid]] = out[valid]
+    got = out.T.reshape(R, L)
     np.testing.assert_array_equal(got, data)
 
 

@@ -1,47 +1,44 @@
-"""ops/lookup: the pallas one-hot kernel is bit-exact vs the gather path.
-
-The XLA variants (bf16x2/f32/int8/flat) only fire on the TPU backend; the
-pallas kernel runs here in interpreter mode, which executes the same kernel
-logic (one-hot tile, block-diagonal int8 planes, plane recombination) on CPU.
-"""
+"""ops/lookup (the code-table gather), ops/walk (the decode walk: the Pallas
+kernel in interpret mode and its XLA twin), the backend policy that picks
+between them, and ops/histogram."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from phyngsc_tpu.ops import lookup
+from phyngsc_tpu import backend
+from phyngsc_tpu.ops import lookup, walk
 
 
 def _reference(sym: np.ndarray, tab: np.ndarray) -> np.ndarray:
-    pos = np.arange(sym.shape[1])[None, :]
-    return tab[pos, sym]
+    return tab[np.arange(sym.shape[1])[None, :], sym]
 
 
 @pytest.mark.parametrize("R,L", [(100, 4), (256, 36), (300, 40),
                                  (128, 80), (64, 128)])
-def test_pallas_lookup_matches_gather(R, L):
+def test_fused_lookup_matches_take(R, L):
     rng = np.random.default_rng(R * 1000 + L)
     # full 16-bit fused-entry range: (len << 12) | code with len <= 12
     tab = ((rng.integers(0, 13, size=(L, 256)) << lookup.CODE_BITS)
            | rng.integers(0, 1 << lookup.CODE_BITS, size=(L, 256))
            ).astype(np.int32)
     sym = rng.integers(0, 256, size=(R, L)).astype(np.uint8)
-    got = np.asarray(lookup.fused_lookup_pallas(
-        jnp.asarray(sym), jnp.asarray(tab), interpret=True))
-    np.testing.assert_array_equal(got, _reference(sym, tab))
+    got = np.asarray(lookup.fused_lookup(jnp.asarray(sym), jnp.asarray(tab)))
+    want = np.stack([np.take(tab[p], sym[:, p]) for p in range(L)], axis=1)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("A", [64, 128])
-def test_pallas_lookup_narrow_tables(A):
+def test_fused_lookup_narrow_tables(A):
     # alphabet-window slicing (lookup.window_np): tables with A < 256
     # columns, symbols pre-clipped to [0, A) by the caller
     rng = np.random.default_rng(A)
     R, L = 300, 36
     tab = rng.integers(0, 1 << 16, size=(L, A)).astype(np.int32)
     sym = rng.integers(0, A, size=(R, L)).astype(np.uint8)
-    got = np.asarray(lookup.fused_lookup_pallas(
-        jnp.asarray(sym), jnp.asarray(tab), interpret=True))
+    got = np.asarray(lookup.fused_lookup(jnp.asarray(sym), jnp.asarray(tab)))
     np.testing.assert_array_equal(got, _reference(sym, tab))
 
 
@@ -88,41 +85,24 @@ def test_encode_device_windowed_matches_full():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pallas_lookup_multi_chunk_boundary():
-    # L > _PL_LC exercises the position-chunk concatenation path
+def test_fused_lookup_long_reads():
+    # 1000 bp rows: one table row per position
     rng = np.random.default_rng(7)
-    L = lookup._PL_LC * 2 + 8
+    L = 1000
     tab = rng.integers(0, 1 << 16, size=(L, 256)).astype(np.int32)
-    sym = rng.integers(0, 256, size=(513, L)).astype(np.uint8)  # pads R too
-    got = np.asarray(lookup.fused_lookup_pallas(
-        jnp.asarray(sym), jnp.asarray(tab), interpret=True))
+    sym = rng.integers(0, 256, size=(33, L)).astype(np.uint8)
+    got = np.asarray(lookup.fused_lookup(jnp.asarray(sym), jnp.asarray(tab)))
     np.testing.assert_array_equal(got, _reference(sym, tab))
 
 
 # ---------------------------------------------------------------------------
-# pallas LUT walk (bitpack.unpack_substreams_uniform_pallas)
+# the slot walk (ops/walk.py): Pallas kernel in interpret mode + XLA twin
 # ---------------------------------------------------------------------------
 
 from phyngsc_tpu.ops import bitpack, huffman
 from phyngsc_tpu.utils.bitio import BitWriter
 
-
-def _runs_from_planes(planes):
-    """(T, V) LUT planes → (starts (T, 256), deltas (T, 256)) run arrays —
-    the test-side inverse of the kernels' cumulative-delta evaluation."""
-    planes = np.asarray(planes)
-    T, V = planes.shape
-    starts = np.full((T, 256), V, np.int32)
-    deltas = np.zeros((T, 256), np.int32)
-    for t in range(T):
-        d = np.flatnonzero(np.diff(planes[t])) + 1
-        st = np.concatenate([[0], d]).astype(np.int64)
-        vals = planes[t][st]
-        prev = np.concatenate([[0], vals[:-1]])
-        k = min(st.shape[0], 256)
-        starts[t, :k] = st[:k]
-        deltas[t, :k] = (vals - prev)[:k]
-    return starts, deltas
+IMPLS = [backend.INTERPRET, backend.XLA]
 
 
 def _random_tables(rng, n_trees, alphabet, max_len):
@@ -136,113 +116,141 @@ def _random_tables(rng, n_trees, alphabet, max_len):
     return lens, codes, np.stack(luts)
 
 
+def _pack_slots(codes, lens, tree, mask, syms):
+    """Host-pack each lane's consumed slots (word-aligned substreams) →
+    (linear words, sub_word_start)."""
+    parts, sub = [], []
+    for s in range(mask.shape[1]):
+        bw = BitWriter()
+        for t in np.flatnonzero(mask[:, s]):
+            bw.put_bits(int(codes[tree[t], syms[t, s]]),
+                        int(lens[tree[t], syms[t, s]]))
+        bw.flush()
+        w = bitpack.bytes_to_words(bw.getvalue())
+        parts.append(w)
+        sub.append(w.shape[0])
+    words = np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+    start = np.concatenate([[0], np.cumsum(sub)[:-1]]).astype(np.int32)
+    return (words if words.size else np.zeros(1, np.uint32)), start
+
+
+def _walk_all(words, start, luts, tree, mask, lut_bits):
+    """Every implementation's output (they must agree)."""
+    return [np.asarray(walk.walk_slots(
+        jnp.asarray(words), jnp.asarray(start), jnp.asarray(luts),
+        jnp.asarray(tree), jnp.asarray(mask), lut_bits, impl))
+        for impl in IMPLS]
+
+
 @pytest.mark.parametrize("S,T,n_trees,max_len", [
     (130, 70, 3, 8),      # lane padding + multi-tree + 8-bit windows
-    (256, 130, 5, 12),    # T > one grid block, 12-bit windows
-    (128, 128, 1, 6),     # shared single tree
+    (256, 130, 5, 12),    # many steps, 12-bit windows
+    (32, 128, 1, 6),      # one kernel program, shared single tree
 ])
 def test_pallas_walk_matches_py_walk(S, T, n_trees, max_len):
     rng = np.random.default_rng(S + T)
     alphabet = 50
     lens, codes, luts = _random_tables(rng, n_trees, alphabet, max_len)
-    tid_vec = rng.integers(0, n_trees, size=T).astype(np.int32)
-    totals = rng.integers(0, T + 1, size=S).astype(np.int32)
-    syms = rng.integers(0, alphabet, size=(S, T))
+    tree = rng.integers(0, n_trees, size=T).astype(np.int32)
+    totals = rng.integers(0, T + 1, size=S)
+    mask = np.arange(T)[:, None] < totals[None, :]     # contiguous validity
+    syms = rng.integers(0, alphabet, size=(T, S))
+    words, start = _pack_slots(codes, lens, tree, mask, syms)
 
-    # pack each substream on the host (word-aligned starts)
-    words_parts, sub_words = [], []
-    for s in range(S):
-        bw = BitWriter()
-        for t in range(int(totals[s])):
-            tr = tid_vec[t]
-            bw.put_bits(int(codes[tr, syms[s, t]]), int(lens[tr, syms[s, t]]))
-        bw.flush()
-        w = bitpack.bytes_to_words(bw.getvalue())
-        words_parts.append(w)
-        sub_words.append(w.shape[0])
-    linear = (np.concatenate(words_parts) if words_parts
-              else np.zeros(0, np.uint32))
-    sub_words = np.array(sub_words, np.int32)
-
-    dense = bitpack.dense_words_np(linear, sub_words)
-    Sp = dense.shape[1]
-    totals_p = np.zeros(Sp, np.int32)
-    totals_p[:S] = totals
-    st, dl = _runs_from_planes(luts)
-    got = np.asarray(bitpack.unpack_substreams_uniform_pallas(
-        jnp.asarray(dense), jnp.asarray(st[tid_vec]),
-        jnp.asarray(dl[tid_vec]), jnp.asarray(totals_p),
-        lut_bits=max_len, interpret=True))[:S]
-
-    # reference: the python walk over the same streams
-    start = np.concatenate([[0], np.cumsum(sub_words)[:-1]])
-    valid = np.arange(T)[None, :] < totals[:, None]
+    # reference: the host walk over the same streams
     ref = bitpack._unpack_substreams_py(
-        linear, start, luts, np.broadcast_to(tid_vec, (S, T)), valid,
-        T, max_len)
-    np.testing.assert_array_equal(np.where(valid, got, 0),
-                                  np.where(valid, ref, 0))
+        words, start, luts, np.broadcast_to(tree, (S, T)), mask.T, T,
+        max_len).T
+    for got in _walk_all(words, start, luts, tree, mask, max_len):
+        np.testing.assert_array_equal(got, np.where(mask, ref, 0))
+        np.testing.assert_array_equal(got, np.where(mask, syms, 0))
 
 
 def test_pallas_walk_shared_luts():
+    """One table for every slot (the DNA stream) under a scattered slot
+    mask: unset slots emit 0 and do not advance the lane."""
     rng = np.random.default_rng(99)
     lens, codes, luts = _random_tables(rng, 1, 30, 8)
     S, T = 140, 64
-    totals = np.full(S, T, np.int32)
-    syms = rng.integers(0, 30, size=(S, T))
-    words_parts, sub_words = [], []
-    for s in range(S):
-        bw = BitWriter()
-        for t in range(T):
-            bw.put_bits(int(codes[0, syms[s, t]]), int(lens[0, syms[s, t]]))
-        bw.flush()
-        w = bitpack.bytes_to_words(bw.getvalue())
-        words_parts.append(w)
-        sub_words.append(w.shape[0])
-    linear = np.concatenate(words_parts)
-    sub_words = np.array(sub_words, np.int32)
-    dense = bitpack.dense_words_np(linear, sub_words)
-    Sp = dense.shape[1]
-    totals_p = np.zeros(Sp, np.int32)
-    totals_p[:S] = totals
-    st, dl = _runs_from_planes(luts[:1])
-    sh_s = np.ascontiguousarray(
-        np.broadcast_to(st[0], (bitpack._WALK_TC, 256)))
-    sh_d = np.ascontiguousarray(
-        np.broadcast_to(dl[0], (bitpack._WALK_TC, 256)))
-    got = np.asarray(bitpack.unpack_substreams_uniform_pallas(
-        jnp.asarray(dense), jnp.asarray(sh_s), jnp.asarray(sh_d),
-        jnp.asarray(totals_p), n_steps=T, shared_luts=True,
-        lut_bits=8, interpret=True))[:S]
-    start = np.concatenate([[0], np.cumsum(sub_words)[:-1]])
-    valid = np.ones((S, T), bool)
-    ref = bitpack._unpack_substreams_py(
-        linear, start, luts, np.zeros((S, T), np.int32), valid, T, 8)
-    np.testing.assert_array_equal(got, ref)
+    tree = np.zeros(T, np.int32)
+    mask = rng.random((T, S)) < 0.6
+    syms = rng.integers(0, 30, size=(T, S))
+    words, start = _pack_slots(codes, lens, tree, mask, syms)
+    for got in _walk_all(words, start, luts, tree, mask, 8):
+        np.testing.assert_array_equal(got, np.where(mask, syms, 0))
 
 
-def test_pallas_walk_full_roundtrip(monkeypatch):
-    """Full container round trip with the walk forced on (interpret mode on
-    CPU) — exercises parse gating, dense layout, and both walk branches."""
-    monkeypatch.setenv("PHYNGSC_WALK", "pallas")
-    from phyngsc_tpu.config import CodecConfig
+@pytest.mark.parametrize("impl", IMPLS)
+def test_walk_dead_lanes(impl):
+    """Lanes with no slot set (bucket padding) own no words: they never
+    advance and emit zeros, and live neighbours still decode exactly —
+    also when the dead lanes' start points past the last word."""
+    rng = np.random.default_rng(7)
+    lens, codes, luts = _random_tables(rng, 2, 20, 10)
+    S, T = 70, 40
+    tree = (np.arange(T) % 2).astype(np.int32)
+    mask = np.ones((T, S), bool)
+    dead = np.array([0, 5, 6, 31, 32, 69])
+    mask[:, dead] = False
+    syms = rng.integers(0, 20, size=(T, S))
+    words, start = _pack_slots(codes, lens, tree, mask, syms)
+    start[dead] = words.shape[0] + 7
+    got = np.asarray(walk.walk_slots(
+        jnp.asarray(words), jnp.asarray(start), jnp.asarray(luts),
+        jnp.asarray(tree), jnp.asarray(mask), 10, impl))
+    np.testing.assert_array_equal(got, np.where(mask, syms, 0))
+    assert not got[:, dead].any()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_walk_window_shift_edges(impl):
+    """1-bit codes put the cursor at every bit offset 0..31 of a word,
+    including offset 0, where the second window word must not leak in (a
+    32-bit shift is undefined on the GPU, so the kernel clamps it); words
+    of all ones make any leak visible."""
+    lens = np.zeros((1, 2), np.uint8)
+    lens[0] = [1, 1]
+    codes = np.asarray(huffman.canonical_codes(lens))
+    sym, ln = huffman.decode_lut(lens[0], 12, -1)
+    luts = ((ln.astype(np.int32) << 9) | sym.astype(np.int32))[None]
+    T, S = 130, 33
+    tree = np.zeros(T, np.int32)
+    mask = np.ones((T, S), bool)
+    syms = np.ones((T, S), np.int64)
+    syms[::7] = 0
+    words, start = _pack_slots(codes, lens, tree, mask, syms)
+    got = np.asarray(walk.walk_slots(
+        jnp.asarray(words), jnp.asarray(start), jnp.asarray(luts),
+        jnp.asarray(tree), jnp.asarray(mask), 12, impl))
+    np.testing.assert_array_equal(got, syms)
+
+
+def _roundtrip(data, cfg):
     from phyngsc_tpu.pipeline.compress import compress_bytes
     from phyngsc_tpu.pipeline.decompress import decompress_bytes
-    from phyngsc_tpu.utils.fastq import synthesize_fastq
 
-    cfg = CodecConfig(records_per_substream=4)
-    data = synthesize_fastq(600, read_len=36, seed=11, ambiguity_rate=0.01)
     blob = compress_bytes(data, cfg)
     assert decompress_bytes(blob, cfg) == data
 
 
+def test_pallas_walk_full_roundtrip(monkeypatch):
+    """Full container round trip with the walk kernel forced on (interpret
+    mode on the CPU) — exercises the parse gating, the fused blob layout,
+    and the quality and plain-DNA decodes of the walk graph."""
+    monkeypatch.setenv("PHYNGSC_WALK", "kernel")
+    from phyngsc_tpu.config import CodecConfig
+    from phyngsc_tpu.utils.fastq import synthesize_fastq
+
+    _roundtrip(synthesize_fastq(600, read_len=36, seed=11,
+                                ambiguity_rate=0.01),
+               CodecConfig(records_per_substream=4))
+
+
 def test_pallas_walk_huffman_dna_roundtrip(monkeypatch):
     """DNA stays Huffman-coded when IUPAC symbols can't transfer (quality
-    outside [33,40]) — exercises decode_huffman_walk under the forced walk."""
-    monkeypatch.setenv("PHYNGSC_WALK", "pallas")
+    outside [33,40]) — exercises dna.decode_huffman under the kernel."""
+    monkeypatch.setenv("PHYNGSC_WALK", "kernel")
     from phyngsc_tpu.config import CodecConfig
-    from phyngsc_tpu.pipeline.compress import compress_bytes
-    from phyngsc_tpu.pipeline.decompress import decompress_bytes
 
     rng = np.random.default_rng(5)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -253,19 +261,14 @@ def test_pallas_walk_huffman_dna_roundtrip(monkeypatch):
         qual = np.full(36, ord("I"), np.uint8)
         recs.append(b"@r%d\n" % i + seq.tobytes() + b"\n+\n"
                     + qual.tobytes() + b"\n")
-    data = b"".join(recs)
-    cfg = CodecConfig(records_per_substream=4)
-    blob = compress_bytes(data, cfg)
-    assert decompress_bytes(blob, cfg) == data
+    _roundtrip(b"".join(recs), CodecConfig(records_per_substream=4))
 
 
 def test_pallas_walk_variable_length_roundtrip(monkeypatch):
-    """Variable-length records under the forced walk: the masked quality
-    walk (decode_device_walk_masked) + packed lens in the fused blob."""
-    monkeypatch.setenv("PHYNGSC_WALK", "pallas")
+    """Variable-length records under the kernel: the slot mask from the
+    per-record lengths + packed lens in the fused blob."""
+    monkeypatch.setenv("PHYNGSC_WALK", "kernel")
     from phyngsc_tpu.config import CodecConfig
-    from phyngsc_tpu.pipeline.compress import compress_bytes
-    from phyngsc_tpu.pipeline.decompress import decompress_bytes
 
     rng = np.random.default_rng(17)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -276,19 +279,14 @@ def test_pallas_walk_variable_length_roundtrip(monkeypatch):
         qual = (rng.integers(33, 73, size=n)).astype(np.uint8)
         recs.append(b"@v%d\n" % i + seq.tobytes() + b"\n+\n"
                     + qual.tobytes() + b"\n")
-    data = b"".join(recs)
-    cfg = CodecConfig(records_per_substream=4)
-    blob = compress_bytes(data, cfg)
-    assert decompress_bytes(blob, cfg) == data
+    _roundtrip(b"".join(recs), CodecConfig(records_per_substream=4))
 
 
 def test_pallas_walk_delta_roundtrip(monkeypatch):
-    """SOLiD color-space reads under the forced walk (is_delta path: raw
-    planes fetch, no packed-alphabet output)."""
-    monkeypatch.setenv("PHYNGSC_WALK", "pallas")
+    """SOLiD color-space reads under the kernel (is_delta path: raw planes
+    fetch, no packed-alphabet output)."""
+    monkeypatch.setenv("PHYNGSC_WALK", "kernel")
     from phyngsc_tpu.config import CodecConfig
-    from phyngsc_tpu.pipeline.compress import compress_bytes
-    from phyngsc_tpu.pipeline.decompress import decompress_bytes
 
     rng = np.random.default_rng(23)
     digits = np.frombuffer(b"0123", np.uint8)
@@ -298,105 +296,112 @@ def test_pallas_walk_delta_roundtrip(monkeypatch):
         seq = b"T" + colors.tobytes()
         qual = (rng.integers(33, 70, size=36)).astype(np.uint8)
         recs.append(b"@s%d\n" % i + seq + b"\n+\n" + qual.tobytes() + b"\n")
-    data = b"".join(recs)
-    cfg = CodecConfig(records_per_substream=4)
-    blob = compress_bytes(data, cfg)
-    assert decompress_bytes(blob, cfg) == data
+    _roundtrip(b"".join(recs), CodecConfig(records_per_substream=4))
 
 
-def test_dense_words_device_matches_np():
-    rng = np.random.default_rng(31)
-    for S in (1, 5, 130):
-        sub = rng.integers(0, 40, size=S).astype(np.int32)
-        total = int(sub.sum())
-        words = rng.integers(1, 1 << 32, size=total, dtype=np.uint64
-                             ).astype(np.uint32)
-        ref = bitpack.dense_words_np(words, sub)
-        Wmax, Sp = ref.shape
-        # device path takes the bucket-padded linear upload
-        up = np.zeros(total + 64, np.uint32)
-        up[:total] = words
-        got = np.asarray(bitpack.dense_words_device(
-            jnp.asarray(up), jnp.asarray(sub), Wmax, Sp))
-        np.testing.assert_array_equal(got, ref)
-
-
-def test_banded_words_plane_matches_valid_cells():
-    """banded_words_np + dense_words_banded == dense_words_np on every valid
-    cell (w < sub[s]); padding cells may hold neighboring words (never read
-    by the walks). Exercises a nonzero words_off and end-slack overread."""
-    rng = np.random.default_rng(41)
-    g = bitpack.DENSE_GROUP
-    for S in (1, 7, 64, 200):
-        sub = rng.integers(0, 60, size=S).astype(np.int32)
-        total = int(sub.sum())
-        words = rng.integers(0, 1 << 32, size=total, dtype=np.uint64
-                             ).astype(np.uint32)
-        ref = bitpack.dense_words_np(words, sub)
-        Wmax, Sp = ref.shape
-        banded = bitpack.banded_words_np(words, sub)
-        prefix = rng.integers(0, 1 << 32, size=37, dtype=np.uint64
-                              ).astype(np.uint32)  # unrelated header words
-        blob = np.concatenate([prefix, banded,
-                               np.zeros(Wmax * g, np.uint32)])
-        got = np.asarray(bitpack.dense_words_banded(
-            jnp.asarray(blob), jnp.int32(prefix.shape[0]),
-            jnp.asarray(sub), Wmax, Sp))
-        sub_pad = np.zeros(Sp, np.int32)
-        sub_pad[:S] = sub
-        valid = np.arange(Wmax)[:, None] < sub_pad[None, :]
-        np.testing.assert_array_equal(got[valid], ref[valid])
-        # device banded_total mirrors the host image length
-        assert int(bitpack.banded_total(jnp.asarray(sub), Sp)) \
-            == banded.shape[0]
-
-
-def test_banded_padding_overhead_small():
-    """The banded image's padding cost on near-uniform lanes (the real
-    stream shape: adjacent substreams = adjacent records) stays within a
-    few percent — the property that makes the wire layout a win."""
-    rng = np.random.default_rng(43)
-    sub = (90 + rng.integers(-3, 4, size=512)).astype(np.int32)
-    total = int(sub.sum())
-    banded = bitpack.banded_words_np(
-        np.zeros(total, np.uint32), sub)
-    assert banded.shape[0] <= total * 1.05
-
-
-def test_sorts_densify_roundtrip(monkeypatch):
-    """The linear-layout sorts densify (bitpack.DENSIFY='sorts') stays a
-    working A/B alternative behind the banded default."""
-    monkeypatch.setenv("PHYNGSC_WALK", "pallas")
-    monkeypatch.setattr(bitpack, "DENSIFY", "sorts")
+def test_pallas_walk_long_reads_any_substream_width(monkeypatch):
+    """1002 bp reads at G=3: the step count G*L has no relation to any tile
+    size (a tiled walk would need the tile to divide G*L)."""
+    monkeypatch.setenv("PHYNGSC_WALK", "kernel")
     from phyngsc_tpu.config import CodecConfig
-    from phyngsc_tpu.pipeline.compress import compress_bytes
-    from phyngsc_tpu.pipeline.decompress import decompress_bytes
-    from phyngsc_tpu.utils.fastq import synthesize_fastq
 
-    cfg = CodecConfig(records_per_substream=4)
-    data = synthesize_fastq(400, read_len=36, seed=19, ambiguity_rate=0.01)
-    blob = compress_bytes(data, cfg)
-    assert decompress_bytes(blob, cfg) == data
+    rng = np.random.default_rng(3)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for i in range(20):
+        seq = acgt[rng.integers(0, 4, size=1002)]
+        qual = rng.integers(35, 71, size=1002).astype(np.uint8)
+        recs.append(b"@k%d\n" % i + seq.tobytes() + b"\n+\n"
+                    + qual.tobytes() + b"\n")
+    _roundtrip(b"".join(recs),
+               CodecConfig(records_per_substream=3, auto_substream=False,
+                           subblock_input_bytes=1 << 30))
 
 
-def test_dense_words_pallas_matches_valid_cells():
-    # the DMA-copy densify matches the sort densify on every valid cell
-    # (w < sub[s]); padding cells deliberately hold neighboring words
-    rng = np.random.default_rng(23)
-    S, Sp = 37, 128
-    sub = rng.integers(0, 300, size=S).astype(np.int32)
-    total = int(sub.sum())
-    words = rng.integers(0, 1 << 32, size=total, dtype=np.uint64
-                         ).astype(np.uint32)
-    Wmax, _ = bitpack.dense_geometry(sub)
-    ref = np.asarray(bitpack.dense_words_device(
-        jnp.asarray(words), jnp.asarray(sub), Wmax, Sp))
-    got = np.asarray(bitpack.dense_words_pallas(
-        jnp.asarray(words), jnp.asarray(sub), Wmax, Sp, interpret=True))
-    sub_pad = np.zeros(Sp, np.int32)
-    sub_pad[:S] = sub
-    valid = np.arange(Wmax)[:, None] < sub_pad[None, :]
-    np.testing.assert_array_equal(got[valid], ref[valid])
+def test_shard_words_np_splits_streams_per_shard():
+    """Mesh decode rows: shard k's quality words, then its DNA words."""
+    from phyngsc_tpu.config import CodecConfig
+    from phyngsc_tpu.parallel.mesh import ShardedSubblockCodec, make_mesh
+
+    codec = ShardedSubblockCodec(make_mesh(4, 1), CodecConfig(data_shards=4))
+    q_sub = np.array([2, 1, 0, 3, 1, 1, 2, 2], np.int32)
+    d_sub = np.array([1, 0, 1, 1, 0, 0, 2, 1], np.int32)
+    q = np.arange(100, 100 + q_sub.sum(), dtype=np.uint32)
+    d = np.arange(200, 200 + d_sub.sum(), dtype=np.uint32)
+    rows = codec.shard_words_np(q, q_sub, d, d_sub)
+    assert rows.shape == (4, 7)
+    np.testing.assert_array_equal(rows[0, :4], [100, 101, 102, 200])
+    np.testing.assert_array_equal(rows[1, :5], [103, 104, 105, 201, 202])
+    np.testing.assert_array_equal(rows[2, :2], [106, 107])
+    np.testing.assert_array_equal(rows[3], [108, 109, 110, 111, 203, 204, 205])
+    assert not rows[2, 2:].any()
+    assert codec.can_decode(8, 8 * 16, 16)
+    assert not codec.can_decode(6, 6 * 16, 16)
+
+
+# ---------------------------------------------------------------------------
+# backend policy (backend.walk_impl)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,env,want", [
+    ("gpu", None, backend.KERNEL),
+    ("gpu", "kernel", backend.KERNEL),
+    ("gpu", "xla", backend.XLA),
+    ("cpu", None, backend.XLA),
+    ("cpu", "kernel", backend.INTERPRET),
+    ("cpu", "xla", backend.XLA),
+])
+def test_walk_policy(monkeypatch, name, env, want):
+    """The GPU runs the compiled kernel (never interpret mode); the CPU runs
+    the XLA walk unless a test forces the kernel, which then interprets."""
+    if env is None:
+        monkeypatch.delenv("PHYNGSC_WALK", raising=False)
+    else:
+        monkeypatch.setenv("PHYNGSC_WALK", env)
+    monkeypatch.setattr(jax, "default_backend", lambda: name)
+    assert backend.walk_impl() == want
+
+
+def test_walk_policy_rejects_unknown_backend(monkeypatch):
+    monkeypatch.delenv("PHYNGSC_WALK", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+    with pytest.raises(RuntimeError, match="unsupported JAX backend"):
+        backend.walk_impl()
+
+
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_dir):
+    """$JAX_COMPILATION_CACHE_DIR wins; otherwise <checkout>/.jax_cache."""
+    import os
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        want = str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache")
+    try:
+        assert backend.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+@pytest.mark.parametrize("pid,per_host,want", [
+    (0, 1, None), (5, 1, None), (5, 4, [1]), (3, 4, [3])])
+def test_distributed_local_device_ids(pid, per_host, want):
+    """Several processes on one host each open only their own GPU."""
+    from phyngsc_tpu.parallel.distributed import local_device_ids
+
+    assert local_device_ids(pid, per_host) == want
+
+
+def test_walk_policy_rejects_unknown_setting(monkeypatch):
+    monkeypatch.setenv("PHYNGSC_WALK", "pallas")
+    with pytest.raises(ValueError, match="PHYNGSC_WALK"):
+        backend.walk_impl("gpu")
 
 
 def test_luts_from_lens_device_matches_batch():
@@ -456,14 +461,14 @@ def test_canonical_codes_batch_matches_prefix_property():
 
 
 @pytest.mark.parametrize("R,L,A", [(100, 7, 256), (1030, 36, 256),
-                                   (64, 5, 128)])
-def test_pallas_position_histogram(R, L, A):
+                                   (64, 5, 128), (40, 1000, 256)])
+def test_position_histogram_matches_add_at(R, L, A):
     from phyngsc_tpu.ops import histogram
     rng = np.random.default_rng(R + L)
     sym = rng.integers(0, A, size=(R, L)).astype(np.uint8)
     valid = rng.random((R, L)) < 0.8
-    got = np.asarray(histogram.position_histogram_pallas(
-        jnp.asarray(sym), jnp.asarray(valid), A, interpret=True))
+    got = np.asarray(histogram.position_histogram(
+        jnp.asarray(sym), jnp.asarray(valid), A))
     ref = np.zeros((L, A), np.int32)
     for p in range(L):
         np.add.at(ref[p], sym[valid[:, p], p], 1)

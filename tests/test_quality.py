@@ -105,88 +105,60 @@ def test_compression_beats_raw():
     assert int(total_words) * 4 < R * L * 0.6  # < 4.8 bits/symbol here
 
 
-def test_pair_decode_matches_single_walk():
-    """decode_device_pairs (two symbols per gather) must reproduce
-    decode_device exactly, including odd substream boundaries, padding
-    records, and record-wrapping pairs (odd read length)."""
-    import jax.numpy as jnp
-
-    from phyngsc_tpu.config import CodecConfig
-    from phyngsc_tpu.models import quality
+@pytest.mark.parametrize("Lt,R_real,G", [(7, 37, 8), (36, 120, 16),
+                                          (12, 33, 4)])
+def test_decode_device_impls_agree(Lt, R_real, G):
+    """The XLA walk and the walk kernel (Pallas interpret mode) decode the
+    same stream identically, including odd read lengths that leave slack
+    in the length bucket and zero-length padding records."""
+    from phyngsc_tpu import backend
     from phyngsc_tpu.utils.shapes import bucket_length
 
-    import os
-
-    cfg = CodecConfig()
     rng = np.random.default_rng(11)
-    # raise the LUT transfer budget so the 16-bit pair case (Lt=36, 36
-    # distinct trees) is exercised rather than budget-rejected
-    os.environ["PHYNGSC_PAIRLUT_BUDGET_MB"] = "64"
-    for Lt, R_real, G in ((7, 37, 8), (36, 120, 16), (12, 33, 4)):
-        L = bucket_length(Lt)
-        Rp = ((R_real + G - 1) // G) * G
-        qual = np.zeros((Rp, L), np.uint8)
-        qual[:R_real, :Lt] = rng.integers(33, 60, size=(R_real, Lt))
-        lens = np.concatenate([np.full(R_real, Lt, np.int32),
-                               np.zeros(Rp - R_real, np.int32)])
-        counts = np.asarray(quality.analyze(jnp.array(qual), jnp.array(lens)))
-        tables = quality.build_tables(counts, cfg)
-        cap = Rp * L // 2 + Rp // G + 8
-        words, sub, _ = quality.encode_device(
-            jnp.array(qual), jnp.array(lens),
-            jnp.array(tables.codes), jnp.array(tables.lens), G, cap)
-        single = quality.decode_device(
+    L = bucket_length(Lt)
+    Rp = ((R_real + G - 1) // G) * G
+    qual = np.zeros((Rp, L), np.uint8)
+    qual[:R_real, :Lt] = rng.integers(33, 60, size=(R_real, Lt))
+    lens = np.concatenate([np.full(R_real, Lt, np.int32),
+                           np.zeros(Rp - R_real, np.int32)])
+    counts = np.asarray(quality.analyze(jnp.array(qual), jnp.array(lens)))
+    tables = quality.build_tables(counts, CFG)
+    cap = Rp * L // 2 + Rp // G + 8
+    words, sub, _ = quality.encode_device(
+        jnp.array(qual), jnp.array(lens),
+        jnp.array(tables.codes), jnp.array(tables.lens), G, cap)
+    for impl in (backend.XLA, backend.INTERPRET):
+        got = quality.decode_device(
             jnp.asarray(words), jnp.asarray(sub), jnp.array(lens),
-            jnp.array(tables.luts(cfg.max_code_len)), L, G, cfg.max_code_len)
-        pplan = quality.pair_plan(tables, Lt)
-        assert pplan is not None
-        luts2, pair_ids, half_ids, pb = pplan
-        pair_vec, half_vec = quality.pair_step_vectors(
-            pair_ids, half_ids, Lt, (G * L) // 2)
-        paired = quality.decode_device_pairs(
-            jnp.asarray(words), jnp.asarray(sub), jnp.array(lens),
-            luts2, jnp.array(pair_vec), jnp.array(half_vec), L, Lt, G, pb)
-        np.testing.assert_array_equal(np.asarray(paired), np.asarray(single))
-        np.testing.assert_array_equal(np.asarray(paired), qual)
-    del os.environ["PHYNGSC_PAIRLUT_BUDGET_MB"]
+            jnp.array(tables.luts(LUT_BITS)), L, G, LUT_BITS, impl=impl)
+        np.testing.assert_array_equal(np.asarray(got), qual, err_msg=impl)
 
 
-def test_pair_plan_dedup_and_cache():
-    """pair_plan dedupes identical trees (one pair table per distinct
-    adjacent pair, not per position), caches across calls, and falls back
-    to None when the deduped tables exceed the transfer budget."""
-    import os
-
-    from phyngsc_tpu.config import CodecConfig
-    from phyngsc_tpu.models import quality
-
-    cfg = CodecConfig()
-    rng = np.random.default_rng(3)
-    Lt = 64
-    # identical distribution at every position → one distinct tree
-    # (small alphabet keeps codes short enough for the pair path)
-    counts = np.tile(rng.integers(1, 1000, size=(1, 256)), (Lt, 1))
-    counts[:, 16:] = 0
-    tables = quality.build_tables(counts, cfg)
-    plan = quality.pair_plan(tables, Lt)
-    assert plan is not None
-    luts2, pair_ids, half_ids, pb = plan
-    # 1 pair table + 1 half table + zero, bucketed to 8
-    assert luts2.shape[0] == 8
-    assert int(pair_ids.max()) == 0 and int(half_ids.max()) == 1
-    # cache: same tables return the identical (is) plan object
-    assert quality.pair_plan(tables, Lt) is plan
-    # budget fallback: force a tiny budget → None
-    os.environ["PHYNGSC_PAIRLUT_BUDGET_MB"] = "0.0001"
-    try:
-        quality._PAIR_CACHE.clear()
-        assert quality.pair_plan(tables, Lt) is None
-    finally:
-        del os.environ["PHYNGSC_PAIRLUT_BUDGET_MB"]
+def test_decode_device_base_offset():
+    """A stream that starts `base` words into a larger buffer (the fused
+    decode blob's layout) decodes like the bare stream."""
+    rng = np.random.default_rng(12)
+    R, L, G = 32, 20, 8
+    lens = rng.integers(1, L + 1, size=R).astype(np.int32)
+    qual = rng.integers(33, 74, size=(R, L)).astype(np.uint8)
+    qual[~np.asarray(quality.valid_mask(jnp.array(lens), L))] = 0
+    counts = quality.analyze(jnp.array(qual), jnp.array(lens))
+    tables = quality.build_tables(np.asarray(counts), CFG)
+    words, sub, total = quality.encode_device(
+        jnp.array(qual), jnp.array(lens),
+        jnp.array(tables.codes), jnp.array(tables.lens), G, R * L)
+    prefix = rng.integers(0, 1 << 32, size=13, dtype=np.uint64)
+    buf = np.concatenate([prefix.astype(np.uint32),
+                          np.asarray(words)[: int(total)]])
+    got = quality.decode_device(
+        jnp.asarray(buf), sub, jnp.array(lens),
+        jnp.array(tables.luts(LUT_BITS)), L, G, LUT_BITS,
+        base=jnp.int32(13))
+    np.testing.assert_array_equal(np.asarray(got), qual)
 
 
 def test_tree_grouping_merges_identical_distributions():
-    """Cost-gated tree grouping (VERDICT r4 next #6): positions with
+    """Cost-gated tree grouping: positions with
     near-identical histograms collapse onto few stored tables (the v4
     proportional mapping needs no new container fields), and the stream
     round-trips."""
